@@ -2,7 +2,9 @@
 """Entry point: python driver_qm.py parameters.in (cf. src/driver_qm.cc)."""
 import sys
 
-from mlmcpathintegral_tpu.drivers.qm import main
+from mlmcpathintegral.drivers.qm import main
+from mlmcpathintegral.utils.compile_cache import enable_compile_cache
 
 if __name__ == "__main__":
+    enable_compile_cache()
     sys.exit(main())

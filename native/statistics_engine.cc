@@ -1,6 +1,6 @@
 // Native streaming statistics engine for logged QoI sample streams.
 //
-// The TPU compute path produces per-sample QoI values at millions of
+// The device compute path produces per-sample QoI values at millions of
 // samples/sec (the LOG_QOI analog of montecarlosinglelevel.cc:46-76 in the
 // reference); analysing those logs (running moments, windowed
 // autocorrelation S_k, tau_int, binning) is host-side streaming work that

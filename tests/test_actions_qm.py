@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mlmcpathintegral_tpu.lattice import Lattice1D
-from mlmcpathintegral_tpu.models import (
+from mlmcpathintegral.lattice import Lattice1D
+from mlmcpathintegral.models import (
     HarmonicOscillatorAction, QuarticOscillatorAction, RenormalisationType,
     RotorAction,
 )

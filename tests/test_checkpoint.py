@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mlmcpathintegral_tpu.lattice import Lattice1D
-from mlmcpathintegral_tpu.models import HarmonicOscillatorAction
-from mlmcpathintegral_tpu.samplers import HMCSampler
-from mlmcpathintegral_tpu.utils import statistics as stats_mod
-from mlmcpathintegral_tpu.utils.checkpoint import (
+from mlmcpathintegral.lattice import Lattice1D
+from mlmcpathintegral.models import HarmonicOscillatorAction
+from mlmcpathintegral.samplers import HMCSampler
+from mlmcpathintegral.utils import statistics as stats_mod
+from mlmcpathintegral.utils.checkpoint import (
     checkpoint_metadata, load_checkpoint, save_checkpoint,
 )
-from mlmcpathintegral_tpu.utils.statistics import Statistics
+from mlmcpathintegral.utils.statistics import Statistics
 
 
 def test_roundtrip_and_identical_continuation(tmp_path):

@@ -16,10 +16,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mlmcpathintegral_tpu.lattice import Lattice1D
-from mlmcpathintegral_tpu.models.rotor import RotorAction
-from mlmcpathintegral_tpu.qoi import qoi_susceptibility
-from mlmcpathintegral_tpu.samplers.cluster import ClusterSampler
+from mlmcpathintegral.lattice import Lattice1D
+from mlmcpathintegral.models.rotor import RotorAction
+from mlmcpathintegral.qoi import qoi_susceptibility
+from mlmcpathintegral.samplers.cluster import ClusterSampler
 
 
 def _run(vectorised: bool, seed: int, M=16, C=512, steps=300):
@@ -123,7 +123,7 @@ def test_cluster_cores_match_exact_enumeration(M, i0, seed):
     """Both the sequential walk and the vectorised masked-run update must
     reproduce the exact per-outcome probabilities — including the
     full-backward-wrap seed re-flip (F=0, B=M) that the vectorised path
-    missed before round 4 (ADVICE r3)."""
+    missed before round 4."""
     lat = Lattice1D(M_lat=M, T_final=float(M))
     act = RotorAction(lat, m0=1.3)
     rng = np.random.default_rng(seed)

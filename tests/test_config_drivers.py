@@ -3,7 +3,7 @@ and the driver executables)."""
 
 import pytest
 
-from mlmcpathintegral_tpu.utils.config import Section, read_parameter_file
+from mlmcpathintegral.utils.config import Section, read_parameter_file
 
 TEMPLATE = """
 # comment
@@ -97,7 +97,7 @@ parallel:
   n_chains = 16
   dtype = 'float64'
 """)
-    from mlmcpathintegral_tpu.drivers.qm import main
+    from mlmcpathintegral.drivers.qm import main
     assert main([str(cfg)]) == 0
     out = capsys.readouterr().out
     assert "statistical error" in out
@@ -127,7 +127,7 @@ parallel:
   n_chains = 16
   dtype = 'float64'
 """)
-    from mlmcpathintegral_tpu.drivers.qft import main
+    from mlmcpathintegral.drivers.qft import main
     assert main([str(cfg)]) == 0
     out = capsys.readouterr().out
     assert "<phi^2> [analytical]" in out
@@ -151,7 +151,7 @@ parallel:
   n_chains = 8
   dtype = 'float64'
 """)
-    from mlmcpathintegral_tpu.drivers.qft import main
+    from mlmcpathintegral.drivers.qft import main
     assert main([str(cfg)]) == 1
     assert "not supported" in capsys.readouterr().out
 
@@ -183,7 +183,7 @@ parallel:
   n_chains = 16
   dtype = 'float64'
 """)
-    from mlmcpathintegral_tpu.drivers.qm import main
+    from mlmcpathintegral.drivers.qm import main
     assert main([str(cfg)]) == 0
     out = capsys.readouterr().out
     assert "Y[1]" in out and "statistical error" in out

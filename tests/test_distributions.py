@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 from scipy import integrate, stats as sstats
 
-from mlmcpathintegral_tpu.distributions import ExpSin2Distribution
+from mlmcpathintegral.distributions import ExpSin2Distribution
 
 
 @pytest.mark.parametrize("sigma", [0.5, 2.0, 8.0, 64.0])

@@ -8,21 +8,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mlmcpathintegral_tpu.conditioned.schwinger import (
+from mlmcpathintegral.conditioned.schwinger import (
     QuenchedSchwingerConditionedFineAction,
     QuenchedSchwingerGaussianConditionedFineAction,
 )
-from mlmcpathintegral_tpu.distributions.gaussianfillin import (
+from mlmcpathintegral.distributions.gaussianfillin import (
     GaussianFillinDistribution,
 )
-from mlmcpathintegral_tpu.lattice2d import CoarseningType, Lattice2D
-from mlmcpathintegral_tpu.mc import MonteCarloTwoLevel
-from mlmcpathintegral_tpu.models.qft.schwinger import QuenchedSchwingerAction
-from mlmcpathintegral_tpu.qoi import qoi_2d_susceptibility
-from mlmcpathintegral_tpu.samplers.schwingercluster import (
+from mlmcpathintegral.lattice2d import CoarseningType, Lattice2D
+from mlmcpathintegral.mc import MonteCarloTwoLevel
+from mlmcpathintegral.models.qft.schwinger import QuenchedSchwingerAction
+from mlmcpathintegral.qoi import qoi_2d_susceptibility
+from mlmcpathintegral.samplers.schwingercluster import (
     QuenchedSchwingerClusterSampler,
 )
-from mlmcpathintegral_tpu.utils.special import mod_2pi
+from mlmcpathintegral.utils.special import mod_2pi
 
 
 def test_draw_satisfies_plaquette_sum_constraints():

@@ -7,11 +7,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mlmcpathintegral_tpu.conditioned.gff import GFFConditionedFineAction
-from mlmcpathintegral_tpu.lattice2d import CoarseningType, Lattice2D
-from mlmcpathintegral_tpu.mc import MonteCarloTwoLevel
-from mlmcpathintegral_tpu.models.qft import GFFAction
-from mlmcpathintegral_tpu.samplers.exact import ExactSampler
+from mlmcpathintegral.conditioned.gff import GFFConditionedFineAction
+from mlmcpathintegral.lattice2d import CoarseningType, Lattice2D
+from mlmcpathintegral.mc import MonteCarloTwoLevel
+from mlmcpathintegral.models.qft import GFFAction
+from mlmcpathintegral.samplers.exact import ExactSampler
 
 
 def qoi_phi_squared(action):

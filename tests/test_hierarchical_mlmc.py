@@ -4,18 +4,18 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mlmcpathintegral_tpu.conditioned import make_conditioned_fine_action
-from mlmcpathintegral_tpu.lattice import Lattice1D
-from mlmcpathintegral_tpu.mc import (
+from mlmcpathintegral.conditioned import make_conditioned_fine_action
+from mlmcpathintegral.lattice import Lattice1D
+from mlmcpathintegral.mc import (
     MonteCarloMultiLevel, MonteCarloSingleLevel,
 )
-from mlmcpathintegral_tpu.models import (
+from mlmcpathintegral.models import (
     HarmonicOscillatorAction, RenormalisationType, RotorAction,
 )
-from mlmcpathintegral_tpu.qoi import qoi_susceptibility, qoi_x_squared
-from mlmcpathintegral_tpu.samplers.cluster import ClusterSampler
-from mlmcpathintegral_tpu.samplers.exact import ExactSampler
-from mlmcpathintegral_tpu.samplers.hierarchical import HierarchicalSampler
+from mlmcpathintegral.qoi import qoi_susceptibility, qoi_x_squared
+from mlmcpathintegral.samplers.cluster import ClusterSampler
+from mlmcpathintegral.samplers.exact import ExactSampler
+from mlmcpathintegral.samplers.hierarchical import HierarchicalSampler
 
 
 def test_hierarchical_sampler_harmonic():
@@ -103,12 +103,12 @@ def test_mlmc_self_flags_window_capped_tau():
     import jax
     import jax.numpy as jnp
 
-    from mlmcpathintegral_tpu.conditioned import make_conditioned_fine_action
-    from mlmcpathintegral_tpu.lattice import Lattice1D
-    from mlmcpathintegral_tpu.mc import MonteCarloMultiLevel
-    from mlmcpathintegral_tpu.models import HarmonicOscillatorAction
-    from mlmcpathintegral_tpu.qoi import qoi_x_squared
-    from mlmcpathintegral_tpu.samplers import HMCSampler
+    from mlmcpathintegral.conditioned import make_conditioned_fine_action
+    from mlmcpathintegral.lattice import Lattice1D
+    from mlmcpathintegral.mc import MonteCarloMultiLevel
+    from mlmcpathintegral.models import HarmonicOscillatorAction
+    from mlmcpathintegral.qoi import qoi_x_squared
+    from mlmcpathintegral.samplers import HMCSampler
 
     act = HarmonicOscillatorAction(Lattice1D(M_lat=16, T_final=4.0),
                                    m0=1.0, mu2=1.0)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from mlmcpathintegral_tpu.lattice2d import CoarseningType, Lattice2D
+from mlmcpathintegral.lattice2d import CoarseningType, Lattice2D
 
 
 @pytest.mark.parametrize("ct", list(CoarseningType))

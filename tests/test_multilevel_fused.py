@@ -1,17 +1,17 @@
-"""Fused-Pallas MonteCarloMultiLevel (Schwinger) vs the analytic oracle
-and the generic XLA path (interpret mode on CPU)."""
+"""Fused MonteCarloMultiLevel (Schwinger) vs the analytic oracle, through
+the fused chunks' plain-JAX references on the CPU."""
 
 import jax
 import jax.numpy as jnp
 
-from mlmcpathintegral_tpu.conditioned.schwinger import (
+from mlmcpathintegral.conditioned.schwinger import (
     make_schwinger_conditioned_fine_action,
 )
-from mlmcpathintegral_tpu.lattice2d import CoarseningType, Lattice2D
-from mlmcpathintegral_tpu.mc import MonteCarloMultiLevel
-from mlmcpathintegral_tpu.models.qft.schwinger import QuenchedSchwingerAction
-from mlmcpathintegral_tpu.qoi import qoi_2d_susceptibility
-from mlmcpathintegral_tpu.samplers import OverrelaxedHeatBathSampler
+from mlmcpathintegral.lattice2d import CoarseningType, Lattice2D
+from mlmcpathintegral.mc import MonteCarloMultiLevel
+from mlmcpathintegral.models.qft.schwinger import QuenchedSchwingerAction
+from mlmcpathintegral.qoi import qoi_2d_susceptibility
+from mlmcpathintegral.samplers import OverrelaxedHeatBathSampler
 
 
 def test_fused_mlmc_matches_oracle():
@@ -23,8 +23,7 @@ def test_fused_mlmc_matches_oracle():
             a, n_burnin=50),
         conditioned_fine_action_factory=make_schwinger_conditioned_fine_action,
         n_level=2, n_burnin=200, n_samples=6000, chunk_size=25,
-        use_pallas=True, pallas_interpret=True)
-    assert mc._fused_level(0) and mc._fused_coarsest()
+        fused="reference")
     mc.evaluate(jax.random.PRNGKey(7), n_chains=256, dtype=jnp.float32)
     num = mc.numerical_result()
     err = mc.statistical_error()
@@ -36,116 +35,8 @@ def test_fused_mlmc_matches_oracle():
     assert all(1 <= t <= mc.t_max for t in mc._t_sub)
 
 
-def test_vmem_oom_retry_shrinks_once():
-    """VERDICT r3 item 9: the dispatch retry must (a) shrink exactly when
-    the error is a real scoped-VMEM exhaustion, logging the shrink, and
-    (b) re-raise anything else on first failure."""
-    import logging
-
-    class XlaRuntimeError(Exception):
-        pass
-
-    lat = Lattice2D(8, 8, CoarseningType.BOTH)
-    act = QuenchedSchwingerAction(lat, beta=4.0)
-    mc = MonteCarloMultiLevel(
-        act, qoi_2d_susceptibility,
-        coarse_sampler_factory=lambda a: OverrelaxedHeatBathSampler(
-            a, n_burnin=10),
-        conditioned_fine_action_factory=make_schwinger_conditioned_fine_action,
-        n_level=2, n_burnin=20, n_samples=100, chunk_size=10,
-        use_pallas=True, pallas_interpret=True)
-
-    oom = XlaRuntimeError(
-        "RESOURCE_EXHAUSTED: Mosaic failed: Scoped allocation of "
-        "23886080 bytes exceeds VMEM limit of 16777216")
-    assert mc._is_vmem_oom(oom)
-    assert not mc._is_vmem_oom(XlaRuntimeError(
-        "INTERNAL: Mosaic miscompile: unexpected operand"))
-    # a non-XLA error class never triggers the retry even if it
-    # mentions memory words
-    assert not mc._is_vmem_oom(ValueError(
-        "vmem layout exceeds expectation"))
-
-    real_make = mc._make_fused_chunk
-    calls = []
-
-    def flaky_make(ell, t_sub, n_chains, block_shrink=1):
-        calls.append(block_shrink)
-        if len(calls) == 1:
-            # pretend the first build used the full block; the real
-            # rebuild below then reports a smaller one, so the
-            # pinned-at-floor fail-fast does not trigger
-
-            def boom(key, carry, n_active):
-                raise oom
-            return boom, 1 << 30
-        return real_make(ell, t_sub, n_chains, block_shrink=block_shrink)
-
-    mc._make_fused_chunk = flaky_make
-    mc._fused_cache.clear()
-    mc._block_shrink.clear()
-    mc.evaluate(jax.random.PRNGKey(3), n_chains=128, dtype=jnp.float32)
-    # the retry re-built the failing kernel with exactly one shrink step
-    assert len(calls) >= 2 and calls[1] == 2, calls
-    assert any(v == 2 for v in mc._block_shrink.values())
-
-    # a non-OOM failure surfaces immediately, without shrink
-    mc2 = MonteCarloMultiLevel(
-        act, qoi_2d_susceptibility,
-        coarse_sampler_factory=lambda a: OverrelaxedHeatBathSampler(
-            a, n_burnin=10),
-        conditioned_fine_action_factory=make_schwinger_conditioned_fine_action,
-        n_level=2, n_burnin=20, n_samples=100, chunk_size=10,
-        use_pallas=True, pallas_interpret=True)
-
-    def bad_make(ell, t_sub, n_chains, block_shrink=1):
-        def boom(key, carry, n_active):
-            raise XlaRuntimeError("INTERNAL: Mosaic miscompile")
-        return boom, 128
-
-    mc2._make_fused_chunk = bad_make
-    mc2._fused_cache.clear()
-    try:
-        mc2.evaluate(jax.random.PRNGKey(4), n_chains=128,
-                     dtype=jnp.float32)
-        raised = False
-    except XlaRuntimeError:
-        raised = True
-    assert raised
-    assert not mc2._block_shrink
-
-    # pinned-at-floor: when shrinking cannot reduce the block, a real
-    # OOM surfaces after ONE futile rebuild instead of five
-    mc3 = MonteCarloMultiLevel(
-        act, qoi_2d_susceptibility,
-        coarse_sampler_factory=lambda a: OverrelaxedHeatBathSampler(
-            a, n_burnin=10),
-        conditioned_fine_action_factory=make_schwinger_conditioned_fine_action,
-        n_level=2, n_burnin=20, n_samples=100, chunk_size=10,
-        use_pallas=True, pallas_interpret=True)
-    calls3 = []
-
-    def pinned_make(ell, t_sub, n_chains, block_shrink=1):
-        calls3.append(block_shrink)
-
-        def boom(key, carry, n_active):
-            raise oom
-        return boom, 128    # floor, never shrinks
-
-    mc3._make_fused_chunk = pinned_make
-    mc3._fused_cache.clear()
-    try:
-        mc3.evaluate(jax.random.PRNGKey(5), n_chains=128,
-                     dtype=jnp.float32)
-        raised = False
-    except XlaRuntimeError:
-        raised = True
-    assert raised
-    assert len(calls3) == 2, calls3
-
-
 def test_fused_t_sub_clocks_on_slow_mode():
-    """VERDICT r4 item 5: the fused t_sub clock must run on
+    """The fused t_sub clock must run on
     max(tau_QoI, tau_slow) of the in-kernel coarse chain, not the QoI
     alone.  Feed the updater a FAST QoI series (tau ~ 1) together with a
     SLOW plaquette-energy series (AR(1), tau ~ 9): t_sub must rise above
@@ -153,7 +44,7 @@ def test_fused_t_sub_clocks_on_slow_mode():
     t_sub pinned at the floor and fails this test."""
     import numpy as np
 
-    from mlmcpathintegral_tpu.utils import statistics as stats_mod
+    from mlmcpathintegral.utils import statistics as stats_mod
 
     lat = Lattice2D(8, 8, CoarseningType.BOTH)
     act = QuenchedSchwingerAction(lat, beta=4.0)
@@ -163,8 +54,7 @@ def test_fused_t_sub_clocks_on_slow_mode():
             a, n_burnin=10),
         conditioned_fine_action_factory=make_schwinger_conditioned_fine_action,
         n_level=2, n_burnin=20, n_samples=100, chunk_size=10,
-        use_pallas=True, pallas_interpret=True)
-    assert mc._fused_level(0)
+        fused="reference")
 
     C = 64
     st_cs = mc.stats_cs[0].init(C, jnp.float32)
@@ -185,8 +75,9 @@ def test_fused_t_sub_clocks_on_slow_mode():
 
     carries = [(None, None, None, st_cs, st_slow, None)]
     mc._t_sub = [mc.FUSED_T_SUB_MIN, mc.FUSED_T_SUB_MIN]
-    mc._fused_coarsest = lambda: False    # exercise the level path only
-    mc._update_t_sub(carries, None)
+    st_L = mc.stats_slow[1].init(C, jnp.float32)
+    carry_L = (None, None, st_L, st_L, None)   # empty coarsest traces
+    mc._update_t_sub(carries, carry_L)
     assert mc._t_sub[0] > mc.FUSED_T_SUB_MIN, \
         (mc._t_sub, tau_slow, "t_sub ignored the slow mode")
     assert mc._t_sub[0] >= 1 << (int(2 * tau_slow) - 1).bit_length() // 1

@@ -4,16 +4,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mlmcpathintegral_tpu.conditioned import make_conditioned_fine_action
-from mlmcpathintegral_tpu.lattice import Lattice1D
-from mlmcpathintegral_tpu.mc import MonteCarloSingleLevel
-from mlmcpathintegral_tpu.models import (
+from mlmcpathintegral.conditioned import make_conditioned_fine_action
+from mlmcpathintegral.lattice import Lattice1D
+from mlmcpathintegral.mc import MonteCarloSingleLevel
+from mlmcpathintegral.models import (
     HarmonicOscillatorAction, RenormalisationType, RotorAction,
 )
-from mlmcpathintegral_tpu.qoi import qoi_susceptibility, qoi_x_squared
-from mlmcpathintegral_tpu.samplers.cluster import ClusterSampler
-from mlmcpathintegral_tpu.samplers.exact import ExactSampler
-from mlmcpathintegral_tpu.samplers.multilevel import MultilevelSampler
+from mlmcpathintegral.qoi import qoi_susceptibility, qoi_x_squared
+from mlmcpathintegral.samplers.cluster import ClusterSampler
+from mlmcpathintegral.samplers.exact import ExactSampler
+from mlmcpathintegral.samplers.multilevel import MultilevelSampler
 
 
 def test_multilevel_sampler_harmonic_oracle():

@@ -8,12 +8,12 @@ import numpy as np
 import pytest
 from scipy import special as ssp
 
-from mlmcpathintegral_tpu.utils import statistics as stats_mod
-from mlmcpathintegral_tpu.utils.native import (
+from mlmcpathintegral.utils import statistics as stats_mod
+from mlmcpathintegral.utils.native import (
     analyze_samples, binning_analysis, fast_i0_scaled_native,
     native_available,
 )
-from mlmcpathintegral_tpu.utils.statistics import Statistics
+from mlmcpathintegral.utils.statistics import Statistics
 
 
 def test_native_library_builds_and_loads():

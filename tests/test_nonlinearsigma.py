@@ -8,20 +8,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mlmcpathintegral_tpu.conditioned.sigma import (
+from mlmcpathintegral.conditioned.sigma import (
     NonlinearSigmaConditionedFineAction,
 )
-from mlmcpathintegral_tpu.distributions.compactexp import CompactExpDistribution
-from mlmcpathintegral_tpu.lattice2d import CoarseningType, Lattice2D
-from mlmcpathintegral_tpu.mc import MonteCarloTwoLevel
-from mlmcpathintegral_tpu.models.base import RenormalisationType
-from mlmcpathintegral_tpu.models.qft.nonlinearsigma import (
+from mlmcpathintegral.distributions.compactexp import CompactExpDistribution
+from mlmcpathintegral.lattice2d import CoarseningType, Lattice2D
+from mlmcpathintegral.mc import MonteCarloTwoLevel
+from mlmcpathintegral.models.base import RenormalisationType
+from mlmcpathintegral.models.qft.nonlinearsigma import (
     NonlinearSigmaAction, angles_to_vec, qoi_magnetic_susceptibility,
     vec_to_angles,
 )
-from mlmcpathintegral_tpu.samplers.heatbath import OverrelaxedHeatBathSampler
-from mlmcpathintegral_tpu.utils import statistics as stats_mod
-from mlmcpathintegral_tpu.utils.statistics import Statistics
+from mlmcpathintegral.samplers.heatbath import OverrelaxedHeatBathSampler
+from mlmcpathintegral.utils import statistics as stats_mod
+from mlmcpathintegral.utils.statistics import Statistics
 
 
 def test_compactexp_inverse_cdf():
@@ -220,7 +220,7 @@ def test_conditioned_fill_consistency():
 
 def test_cluster2d_agrees_with_heatbath():
     """Wolff cluster sampler vs heat-bath cross-validation on chi_m."""
-    from mlmcpathintegral_tpu.samplers.cluster2d import Cluster2DSampler
+    from mlmcpathintegral.samplers.cluster2d import Cluster2DSampler
     qoi = qoi_magnetic_susceptibility(ACT)
     C = 128
 
@@ -252,7 +252,7 @@ def test_cluster2d_agrees_with_heatbath():
 def test_sigma_twolevel_matches_singlelevel():
     """Two-level screened sigma chain vs an independent single-level
     heat-bath estimate of chi_m (no closed-form oracle)."""
-    from mlmcpathintegral_tpu.mc import MonteCarloSingleLevel
+    from mlmcpathintegral.mc import MonteCarloSingleLevel
     act = ACT
     qoi_factory = qoi_magnetic_susceptibility
 

@@ -1,6 +1,6 @@
 """CounterRng stream-independence regression tests.
 
-The two-lane counter RNG (ops/pallas_rng.py) once combined its site and
+The two-lane counter RNG (ops/counter_rng.py) once combined its site and
 chain lanes by XOR; at fixed counter the ensemble then held a single
 random word per chain, reused by every site/step through constant XOR
 masks — perfectly uniform marginals, but cross-site float correlations
@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mlmcpathintegral_tpu.ops.pallas_rng import CounterRng
+from mlmcpathintegral.ops.counter_rng import CounterRng
 
 
 def _streams(n_steps=6, n_ctr=3, Mc=8, C=8192):

@@ -1,9 +1,11 @@
-"""Fused Pallas two-level Schwinger kernel vs the XLA reference path.
+"""Fused two-level Schwinger chunk (ops/schwinger_twolevel.py) vs the XLA
+path, through the chunk's plain-JAX reference on the CPU (the CUDA kernel
+is compared with the same reference on the card by chip_smoke.py).
 
 Deterministic pieces (parity-component geometry, action values, the
 conditioned-action evaluate) are bit-compared against the model /
 conditioned XLA implementations; the in-kernel special functions are
-compared against scipy; the full fused chain (interpret mode) is driven
+compared against scipy; the full fused chain (reference) is driven
 against BOTH analytic oracles: E[Q_fine] = V chi_t(beta, P) because the
 delayed-acceptance chain targets the fine Gibbs measure, and
 E[Q_coarse] = V chi_t(beta_c, P/4) for the coarse heat-bath chain.
@@ -17,14 +19,14 @@ import numpy as np
 import pytest
 from scipy import special as ssp
 
-from mlmcpathintegral_tpu.conditioned.schwinger import (
+from mlmcpathintegral.conditioned.schwinger import (
     QuenchedSchwingerConditionedFineAction,
 )
-from mlmcpathintegral_tpu.lattice2d import CoarseningType, Lattice2D
-from mlmcpathintegral_tpu.models.qft.schwinger import (
+from mlmcpathintegral.lattice2d import CoarseningType, Lattice2D
+from mlmcpathintegral.models.qft.schwinger import (
     QuenchedSchwingerAction, chit_analytical,
 )
-from mlmcpathintegral_tpu.ops import pallas_schwinger_twolevel as tl
+from mlmcpathintegral.ops import schwinger_twolevel as tl
 
 PI = math.pi
 
@@ -56,7 +58,7 @@ def test_s_fine_and_qoi_match_action():
     np.testing.assert_allclose(np.asarray(sf),
                                np.asarray(act.evaluate(theta)),
                                rtol=2e-6)
-    from mlmcpathintegral_tpu.utils.special import mod_2pi
+    from mlmcpathintegral.utils.special import mod_2pi
     q_ref = jnp.sum(mod_2pi(act.plaquette_angles(theta)), axis=(-2, -1))
     q = tl.q_topological(comps, tl.jnp_sh)
     np.testing.assert_allclose(np.asarray(q), np.asarray(q_ref),
@@ -88,7 +90,7 @@ def test_s_coarse_matches_coarse_action():
     np.testing.assert_allclose(np.asarray(sc),
                                np.asarray(cact.evaluate(theta_c)),
                                rtol=2e-6)
-    from mlmcpathintegral_tpu.utils.special import mod_2pi
+    from mlmcpathintegral.utils.special import mod_2pi
     qc_ref = jnp.sum(mod_2pi(cact.plaquette_angles(theta_c)),
                      axis=(-2, -1))
     qc = tl.q_coarse(gc[0], gc[1], tl.jnp_sh)
@@ -125,10 +127,10 @@ def test_bessel_fill_draw_density(beta):
     distribution's own evaluate: accepted lanes are exactly q-distributed
     (KS test against the numerically-integrated CDF).  Small beta guards
     the envelope side-selection fix (both pieces comparable there)."""
-    from mlmcpathintegral_tpu.distributions.besselproduct import (
+    from mlmcpathintegral.distributions.besselproduct import (
         BesselProductDistribution,
     )
-    from mlmcpathintegral_tpu.ops.pallas_rng import CounterRng
+    from mlmcpathintegral.ops.counter_rng import CounterRng
 
     bp = BesselProductDistribution(beta)
     x_p, x_m = 0.7, -1.3
@@ -181,7 +183,7 @@ def test_fill_distribution_matches_xla_fill(BETA):
     sf_xla = np.asarray(act.evaluate(trial_xla))
 
     # kernel fill (pure-jnp roll flavour)
-    from mlmcpathintegral_tpu.ops.pallas_rng import CounterRng
+    from mlmcpathintegral.ops.counter_rng import CounterRng
     Mxc, Mtc = Mx // 2, Mt // 2
     gc = theta_c.reshape(C, Mxc, Mtc, 2).transpose(3, 1, 2, 0)
     site, chain = jnp.meshgrid(
@@ -219,7 +221,7 @@ def test_fill_distribution_matches_xla_fill(BETA):
 
 @pytest.mark.parametrize("BETA", [2.0, 16.0])
 def test_fused_chain_matches_oracles(BETA):
-    """Drive the fused two-level kernel (interpret mode) and check the
+    """Drive the fused two-level chunk (reference) and check the
     stationary distribution against BOTH analytic oracles.  BETA=16
     exercises the large-beta Gaussian-mixture fill branch
     (quenchedschwingerconditionedfineaction.hh:37-44)."""
@@ -241,7 +243,7 @@ def test_fused_chain_matches_oracles(BETA):
         return tl.schwinger_twolevel_chain(
             theta_f, theta_c, s_f, s_q, seed,
             beta=BETA, beta_c=cact.beta, Mt=Mt, Mx=Mx,
-            n_steps=n_steps, t_sub=2, block_chains=C, interpret=True)
+            n_steps=n_steps, t_sub=2, reference=True)
 
     # burn-in
     theta_f, theta_c, s_f, s_q, *_ = chunk(theta_f, theta_c, s_f, s_q,
@@ -288,12 +290,12 @@ def test_fill_force_reject_rate_negligible():
     exact branch (beta = 8)."""
     import math
 
-    from mlmcpathintegral_tpu.distributions.besselproduct import (
+    from mlmcpathintegral.distributions.besselproduct import (
         BesselProductDistribution,
     )
-    from mlmcpathintegral_tpu.models.base import RenormalisationType
-    from mlmcpathintegral_tpu.ops.pallas_rng import CounterRng, element_ids
-    from mlmcpathintegral_tpu.samplers.heatbath import (
+    from mlmcpathintegral.models.base import RenormalisationType
+    from mlmcpathintegral.ops.counter_rng import CounterRng, element_ids
+    from mlmcpathintegral.samplers.heatbath import (
         OverrelaxedHeatBathSampler,
     )
 
@@ -308,7 +310,7 @@ def test_fill_force_reject_rate_negligible():
     bp = BesselProductDistribution(beta)
     Mtc = M // 2
     gc = xc.reshape(C, Mtc, Mtc, 2).transpose(3, 1, 2, 0)
-    site, chain = element_ids((Mtc, Mtc, C), C, jnp.uint32(0))
+    site, chain = element_ids((Mtc, Mtc, C))
     import inspect
 
     sig = inspect.signature(tl.schwinger_twolevel_chain)

@@ -10,13 +10,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mlmcpathintegral_tpu.lattice import Lattice1D
-from mlmcpathintegral_tpu.models import HarmonicOscillatorAction
-from mlmcpathintegral_tpu.parallel import chain_mesh, distribute_n, shard_chains
-from mlmcpathintegral_tpu.qoi import qoi_x_squared
-from mlmcpathintegral_tpu.samplers import HMCSampler
-from mlmcpathintegral_tpu.utils import statistics as stats_mod
-from mlmcpathintegral_tpu.utils.statistics import Statistics
+from mlmcpathintegral.lattice import Lattice1D
+from mlmcpathintegral.models import HarmonicOscillatorAction
+from mlmcpathintegral.parallel import chain_mesh, distribute_n, shard_chains
+from mlmcpathintegral.qoi import qoi_x_squared
+from mlmcpathintegral.samplers import HMCSampler
+from mlmcpathintegral.utils import statistics as stats_mod
+from mlmcpathintegral.utils.statistics import Statistics
 
 
 def _cpu_devices():
@@ -87,7 +87,7 @@ def test_sharded_full_mc_estimate():
     devices = _cpu_devices()
     if len(devices) < 8:
         pytest.skip("needs 8 virtual CPU devices")
-    from mlmcpathintegral_tpu.mc import MonteCarloSingleLevel
+    from mlmcpathintegral.mc import MonteCarloSingleLevel
 
     lat = Lattice1D(16, 4.0)
     action = HarmonicOscillatorAction(lat, m0=1.0, mu2=1.0)

@@ -1,4 +1,4 @@
-"""Round-2 parity-gap fixes (VERDICT r1 item 8 + weak-point 3):
+"""Round-2 parity-gap fixes:
 hard_reset, window-cap warning + binning cross-check, SAVE_STATES dumps,
 random_order key handling."""
 
@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mlmcpathintegral_tpu.utils import statistics as stats_mod
-from mlmcpathintegral_tpu.utils.statistics import Statistics
+from mlmcpathintegral.utils import statistics as stats_mod
+from mlmcpathintegral.utils.statistics import Statistics
 
 
 def test_hard_reset_clears_everything():
@@ -31,7 +31,7 @@ def test_window_cap_warning_and_binning_tau():
     """A strongly-autocorrelated series whose tau exceeds the window must
     set window_capped and emit one warning; the binning estimate must
     exceed the (deflated) windowed value."""
-    from mlmcpathintegral_tpu.utils.native import binning_analysis
+    from mlmcpathintegral.utils.native import binning_analysis
 
     rng = np.random.default_rng(0)
     n, rho = 8000, 0.995                      # tau_true ~ 400
@@ -62,11 +62,11 @@ def test_window_cap_warning_and_binning_tau():
 
 
 def test_save_states_dump(tmp_path):
-    from mlmcpathintegral_tpu.lattice import Lattice1D
-    from mlmcpathintegral_tpu.mc import MonteCarloSingleLevel
-    from mlmcpathintegral_tpu.models import HarmonicOscillatorAction
-    from mlmcpathintegral_tpu.qoi import qoi_x_squared
-    from mlmcpathintegral_tpu.samplers import HMCSampler
+    from mlmcpathintegral.lattice import Lattice1D
+    from mlmcpathintegral.mc import MonteCarloSingleLevel
+    from mlmcpathintegral.models import HarmonicOscillatorAction
+    from mlmcpathintegral.qoi import qoi_x_squared
+    from mlmcpathintegral.samplers import HMCSampler
 
     lat = Lattice1D(M_lat=8, T_final=4.0)
     act = HarmonicOscillatorAction(lat, m0=1.0, mu2=1.0)
@@ -86,7 +86,7 @@ def test_save_states_dump(tmp_path):
 
 
 def test_random_order_key_warns():
-    from mlmcpathintegral_tpu.drivers.common import make_sampler_factory
+    from mlmcpathintegral.drivers.common import make_sampler_factory
     config = {"heatbath": {"n_sweep_heatbath": 1, "n_sweep_overrelax": 1,
                            "n_burnin": 10, "random_order": True}}
     with warnings.catch_warnings(record=True) as w:

@@ -6,21 +6,21 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mlmcpathintegral_tpu.conditioned import make_conditioned_fine_action
-from mlmcpathintegral_tpu.conditioned.schwinger import (
+from mlmcpathintegral.conditioned import make_conditioned_fine_action
+from mlmcpathintegral.conditioned.schwinger import (
     make_schwinger_conditioned_fine_action,
 )
-from mlmcpathintegral_tpu.lattice import Lattice1D
-from mlmcpathintegral_tpu.lattice2d import CoarseningType, Lattice2D
-from mlmcpathintegral_tpu.mc import (
+from mlmcpathintegral.lattice import Lattice1D
+from mlmcpathintegral.lattice2d import CoarseningType, Lattice2D
+from mlmcpathintegral.mc import (
     MonteCarloMultiLevel, MonteCarloSingleLevel, MonteCarloTwoLevel,
 )
-from mlmcpathintegral_tpu.models import (
+from mlmcpathintegral.models import (
     QuarticOscillatorAction, RenormalisationType,
 )
-from mlmcpathintegral_tpu.models.qft.schwinger import QuenchedSchwingerAction
-from mlmcpathintegral_tpu.qoi import qoi_2d_susceptibility, qoi_x_squared
-from mlmcpathintegral_tpu.samplers import (
+from mlmcpathintegral.models.qft.schwinger import QuenchedSchwingerAction
+from mlmcpathintegral.qoi import qoi_2d_susceptibility, qoi_x_squared
+from mlmcpathintegral.samplers import (
     HMCSampler, OverrelaxedHeatBathSampler, QuenchedSchwingerClusterSampler,
 )
 

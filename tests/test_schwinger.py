@@ -10,19 +10,19 @@ import numpy as np
 import pytest
 from scipy import integrate, stats as sstats
 
-from mlmcpathintegral_tpu.distributions.expcos import ExpCosDistribution
-from mlmcpathintegral_tpu.lattice2d import CoarseningType, Lattice2D
-from mlmcpathintegral_tpu.models.qft.schwinger import (
+from mlmcpathintegral.distributions.expcos import ExpCosDistribution
+from mlmcpathintegral.lattice2d import CoarseningType, Lattice2D
+from mlmcpathintegral.models.qft.schwinger import (
     QuenchedSchwingerAction, chit_analytical, chit_perturbative,
 )
-from mlmcpathintegral_tpu.models.base import RenormalisationType
-from mlmcpathintegral_tpu.qoi import qoi_2d_susceptibility, qoi_avg_plaquette
-from mlmcpathintegral_tpu.samplers.heatbath import OverrelaxedHeatBathSampler
-from mlmcpathintegral_tpu.samplers.schwingercluster import (
+from mlmcpathintegral.models.base import RenormalisationType
+from mlmcpathintegral.qoi import qoi_2d_susceptibility, qoi_avg_plaquette
+from mlmcpathintegral.samplers.heatbath import OverrelaxedHeatBathSampler
+from mlmcpathintegral.samplers.schwingercluster import (
     QuenchedSchwingerClusterSampler,
 )
-from mlmcpathintegral_tpu.utils.statistics import Statistics
-from mlmcpathintegral_tpu.utils import statistics as stats_mod
+from mlmcpathintegral.utils.statistics import Statistics
+from mlmcpathintegral.utils import statistics as stats_mod
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +122,7 @@ def test_link_restrict_of_prolongate_is_identity(ct):
     tf2 = act.prolongate(tc, tf)
     back = act.restrict(tf2)
     # restriction sums the two half-angles -> recovers theta_c mod 2pi
-    from mlmcpathintegral_tpu.utils.special import mod_2pi
+    from mlmcpathintegral.utils.special import mod_2pi
     np.testing.assert_allclose(np.asarray(back),
                                np.asarray(mod_2pi(tc)), atol=1e-10)
 
@@ -222,9 +222,9 @@ def test_hybrid_cluster_psi_roundtrip_and_clock():
     subsampler clocks on it instead of the QoI."""
     import numpy as np
 
-    from mlmcpathintegral_tpu.mc.twolevel import make_coarse_subsampler
-    from mlmcpathintegral_tpu.qoi import qoi_2d_susceptibility
-    from mlmcpathintegral_tpu.utils.special import mod_2pi
+    from mlmcpathintegral.mc.twolevel import make_coarse_subsampler
+    from mlmcpathintegral.qoi import qoi_2d_susceptibility
+    from mlmcpathintegral.utils.special import mod_2pi
 
     lat = Lattice2D(8, 8, CoarseningType.BOTH)
     act = QuenchedSchwingerAction(lat, beta=2.0)
@@ -242,8 +242,8 @@ def test_hybrid_cluster_psi_roundtrip_and_clock():
     assert np.all(obs > -1.0) and np.all(obs < 1.0)
     # (c) the subsampler records the sampler's observable, not the QoI
     sub = make_coarse_subsampler(s, qoi_2d_susceptibility(act))
-    from mlmcpathintegral_tpu.utils import statistics as stats_mod
-    from mlmcpathintegral_tpu.utils.statistics import Statistics
+    from mlmcpathintegral.utils import statistics as stats_mod
+    from mlmcpathintegral.utils.statistics import Statistics
     stats = Statistics("clk", 10)
     ss = stats.init(16, jnp.float64)
     ta = (jnp.zeros(()), jnp.zeros(()))
@@ -259,12 +259,12 @@ def test_fused_t_sub_floor():
     """Fused levels must never subsample below FUSED_T_SUB_MIN (the
     correlated-proposal bias floor, round 4) — including via the
     shrink branch of the ratchet."""
-    from mlmcpathintegral_tpu.conditioned.schwinger import (
+    from mlmcpathintegral.conditioned.schwinger import (
         make_schwinger_conditioned_fine_action,
     )
-    from mlmcpathintegral_tpu.mc import MonteCarloMultiLevel
-    from mlmcpathintegral_tpu.qoi import qoi_2d_susceptibility
-    from mlmcpathintegral_tpu.samplers import OverrelaxedHeatBathSampler
+    from mlmcpathintegral.mc import MonteCarloMultiLevel
+    from mlmcpathintegral.qoi import qoi_2d_susceptibility
+    from mlmcpathintegral.samplers import OverrelaxedHeatBathSampler
 
     lat = Lattice2D(8, 8, CoarseningType.BOTH)
     act = QuenchedSchwingerAction(lat, beta=4.0)
@@ -274,7 +274,7 @@ def test_fused_t_sub_floor():
             a, n_burnin=10),
         conditioned_fine_action_factory=make_schwinger_conditioned_fine_action,
         n_level=2, n_burnin=20, n_samples=200, chunk_size=20,
-        use_pallas=True, pallas_interpret=True)
+        fused="reference")
     assert all(t >= mc.FUSED_T_SUB_MIN for t in mc._t_sub)
     mc.evaluate(jax.random.PRNGKey(5), n_chains=64, dtype=jnp.float32)
     assert all(t >= mc.FUSED_T_SUB_MIN for t in mc._t_sub), mc._t_sub

@@ -12,23 +12,23 @@ import numpy as np
 import pytest
 from scipy import integrate, special as ssp, stats as sstats
 
-from mlmcpathintegral_tpu.conditioned.schwinger import (
+from mlmcpathintegral.conditioned.schwinger import (
     QuenchedSchwingerConditionedFineAction,
     QuenchedSchwingerSemiConditionedFineAction,
     make_schwinger_conditioned_fine_action,
 )
-from mlmcpathintegral_tpu.distributions.approxbesselproduct import (
+from mlmcpathintegral.distributions.approxbesselproduct import (
     ApproximateBesselProductDistribution,
 )
-from mlmcpathintegral_tpu.distributions.besselproduct import (
+from mlmcpathintegral.distributions.besselproduct import (
     BesselProductDistribution,
 )
-from mlmcpathintegral_tpu.lattice2d import CoarseningType, Lattice2D
-from mlmcpathintegral_tpu.mc import MonteCarloMultiLevel, MonteCarloTwoLevel
-from mlmcpathintegral_tpu.models.base import RenormalisationType
-from mlmcpathintegral_tpu.models.qft.schwinger import QuenchedSchwingerAction
-from mlmcpathintegral_tpu.qoi import qoi_2d_susceptibility
-from mlmcpathintegral_tpu.samplers.schwingercluster import (
+from mlmcpathintegral.lattice2d import CoarseningType, Lattice2D
+from mlmcpathintegral.mc import MonteCarloMultiLevel, MonteCarloTwoLevel
+from mlmcpathintegral.models.base import RenormalisationType
+from mlmcpathintegral.models.qft.schwinger import QuenchedSchwingerAction
+from mlmcpathintegral.qoi import qoi_2d_susceptibility
+from mlmcpathintegral.samplers.schwingercluster import (
     QuenchedSchwingerClusterSampler,
 )
 
@@ -118,7 +118,7 @@ def test_fill_preserves_coarse_plaquette_sums():
     theta_f = act.prolongate(theta_c, jnp.zeros((16, act.ndof), jnp.float64))
     theta_f = cond.fill_fine_points(kf, theta_f)
     back = np.asarray(act.restrict(theta_f))
-    from mlmcpathintegral_tpu.utils.special import mod_2pi
+    from mlmcpathintegral.utils.special import mod_2pi
     np.testing.assert_allclose(back, np.asarray(mod_2pi(theta_c)),
                                atol=1e-10)
 
@@ -136,7 +136,7 @@ def test_semi_fill_preserves_coarse_sums(ct):
     theta_f = act.prolongate(theta_c, jnp.zeros((16, act.ndof), jnp.float64))
     theta_f = cond.fill_fine_points(kf, theta_f)
     back = np.asarray(act.restrict(theta_f))
-    from mlmcpathintegral_tpu.utils.special import mod_2pi
+    from mlmcpathintegral.utils.special import mod_2pi
     np.testing.assert_allclose(back, np.asarray(mod_2pi(theta_c)),
                                atol=1e-10)
 

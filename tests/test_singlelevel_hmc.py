@@ -8,11 +8,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mlmcpathintegral_tpu.lattice import Lattice1D
-from mlmcpathintegral_tpu.mc import MonteCarloSingleLevel
-from mlmcpathintegral_tpu.models import HarmonicOscillatorAction, RotorAction
-from mlmcpathintegral_tpu.qoi import qoi_susceptibility, qoi_x_squared
-from mlmcpathintegral_tpu.samplers import HMCSampler
+from mlmcpathintegral.lattice import Lattice1D
+from mlmcpathintegral.mc import MonteCarloSingleLevel
+from mlmcpathintegral.models import HarmonicOscillatorAction, RotorAction
+from mlmcpathintegral.qoi import qoi_susceptibility, qoi_x_squared
+from mlmcpathintegral.samplers import HMCSampler
 
 
 def test_hmc_harmonic_xsquared_matches_oracle():

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 from scipy import special as ssp
 
-from mlmcpathintegral_tpu.utils.special import (
+from mlmcpathintegral.utils.special import (
     Phi_chit, Phi_chit_perturbative, Sigma_hat, fast_i0_scaled,
     gff_phi_squared_analytical, mod_2pi, mod_pi,
 )

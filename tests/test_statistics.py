@@ -13,8 +13,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mlmcpathintegral_tpu.utils import statistics as stats_mod
-from mlmcpathintegral_tpu.utils.statistics import Statistics
+from mlmcpathintegral.utils import statistics as stats_mod
+from mlmcpathintegral.utils.statistics import Statistics
 
 
 class ReferenceStatistics:

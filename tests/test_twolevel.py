@@ -11,18 +11,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mlmcpathintegral_tpu.conditioned import (
+from mlmcpathintegral.conditioned import (
     GaussianConditionedFineAction, RotorConditionedFineAction,
     make_conditioned_fine_action,
 )
-from mlmcpathintegral_tpu.lattice import Lattice1D
-from mlmcpathintegral_tpu.mc import MonteCarloTwoLevel, TwoLevelMetropolisStep
-from mlmcpathintegral_tpu.models import (
+from mlmcpathintegral.lattice import Lattice1D
+from mlmcpathintegral.mc import MonteCarloTwoLevel, TwoLevelMetropolisStep
+from mlmcpathintegral.models import (
     HarmonicOscillatorAction, RenormalisationType, RotorAction,
 )
-from mlmcpathintegral_tpu.qoi import qoi_susceptibility, qoi_x_squared
-from mlmcpathintegral_tpu.samplers.exact import ExactSampler
-from mlmcpathintegral_tpu.samplers.cluster import ClusterSampler
+from mlmcpathintegral.qoi import qoi_susceptibility, qoi_x_squared
+from mlmcpathintegral.samplers.exact import ExactSampler
+from mlmcpathintegral.samplers.cluster import ClusterSampler
 
 
 def test_gaussian_fill_matches_conditional_distribution():

@@ -14,7 +14,7 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from mlmcpathintegral_tpu.utils.native import (  # noqa: E402
+from mlmcpathintegral.utils.native import (  # noqa: E402
     analyze_samples, binning_analysis, native_available,
 )
 

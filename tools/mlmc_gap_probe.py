@@ -1,4 +1,4 @@
-"""Probe the MLMC orchestration gap (VERDICT r2 item 1).
+"""Probe the MLMC orchestration gap.
 
 Runs the north-star MLMC config at a reduced sample budget with per-
 run_level dispatch/block timing (mc/multilevel.py::chunk_log) to locate
@@ -16,9 +16,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  str(Path(__file__).resolve().parents[1] / ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.05)
+from mlmcpathintegral.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 import jax.numpy as jnp
 
@@ -27,17 +27,17 @@ def main():
     n_samples = int(sys.argv[1]) if len(sys.argv) > 1 else 1_000_000
     chunk_size = int(sys.argv[2]) if len(sys.argv) > 2 else 256
 
-    from mlmcpathintegral_tpu.conditioned.schwinger import (
+    from mlmcpathintegral.conditioned.schwinger import (
         make_schwinger_conditioned_fine_action,
     )
-    from mlmcpathintegral_tpu.lattice2d import CoarseningType, Lattice2D
-    from mlmcpathintegral_tpu.mc import MonteCarloMultiLevel
-    from mlmcpathintegral_tpu.models.base import RenormalisationType
-    from mlmcpathintegral_tpu.models.qft.schwinger import (
+    from mlmcpathintegral.lattice2d import CoarseningType, Lattice2D
+    from mlmcpathintegral.mc import MonteCarloMultiLevel
+    from mlmcpathintegral.models.base import RenormalisationType
+    from mlmcpathintegral.models.qft.schwinger import (
         QuenchedSchwingerAction,
     )
-    from mlmcpathintegral_tpu.qoi import qoi_2d_susceptibility
-    from mlmcpathintegral_tpu.samplers import QuenchedSchwingerClusterSampler
+    from mlmcpathintegral.qoi import qoi_2d_susceptibility
+    from mlmcpathintegral.samplers import QuenchedSchwingerClusterSampler
 
     lat = Lattice2D(8, 8, CoarseningType.BOTH)
     act = QuenchedSchwingerAction(
@@ -49,7 +49,7 @@ def main():
             a, n_burnin=20, n_updates=5),
         conditioned_fine_action_factory=make_schwinger_conditioned_fine_action,
         n_level=2, n_burnin=100, n_samples=n_samples,
-        chunk_size=chunk_size, use_pallas=True)
+        chunk_size=chunk_size)
     print(f"ctor: {time.monotonic() - t0:.2f}s", flush=True)
     stats = mc.evaluate(jax.random.PRNGKey(2), n_chains=1024,
                         dtype=jnp.float32, verbose=True)

@@ -32,7 +32,7 @@ def main():
         pass
     import jax.numpy as jnp
 
-    from mlmcpathintegral_tpu.distributions.approxbesselproduct import (
+    from mlmcpathintegral.distributions.approxbesselproduct import (
         ApproximateBesselProductDistribution,
     )
 
@@ -49,7 +49,7 @@ def main():
 
     have_exact = args.beta <= 8.0
     if have_exact:
-        from mlmcpathintegral_tpu.distributions.besselproduct import (
+        from mlmcpathintegral.distributions.besselproduct import (
             BesselProductDistribution,
         )
         exact = BesselProductDistribution(args.beta)

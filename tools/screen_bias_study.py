@@ -1,7 +1,6 @@
 #!/usr/bin/env python
 """Screen-bias regression of the fused two-level path at MULTIPLE
-couplings (VERDICT r4 item 5 validation standard: 3 seeds, ~0.1%
-precision per configuration).
+couplings.
 
 Round 4 established that delayed acceptance is exact only for
 independent coarse proposals and validated the fused t_sub floor at
@@ -27,26 +26,26 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir",
-                  str(Path(__file__).resolve().parents[1] / ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.05)
+from mlmcpathintegral.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 import jax.numpy as jnp  # noqa: E402
 
 
 def run_one(M, beta, seed, *, rel_target=1e-3, n_chains=1024,
-            chunk_size=256, interpret=False):
-    from mlmcpathintegral_tpu.conditioned.schwinger import (
+            chunk_size=256, fused="cuda"):
+    from mlmcpathintegral.conditioned.schwinger import (
         make_schwinger_conditioned_fine_action,
     )
-    from mlmcpathintegral_tpu.lattice2d import CoarseningType, Lattice2D
-    from mlmcpathintegral_tpu.mc import MonteCarloMultiLevel
-    from mlmcpathintegral_tpu.models.base import RenormalisationType
-    from mlmcpathintegral_tpu.models.qft.schwinger import (
+    from mlmcpathintegral.lattice2d import CoarseningType, Lattice2D
+    from mlmcpathintegral.mc import MonteCarloMultiLevel
+    from mlmcpathintegral.models.base import RenormalisationType
+    from mlmcpathintegral.models.qft.schwinger import (
         QuenchedSchwingerAction,
     )
-    from mlmcpathintegral_tpu.qoi import qoi_2d_susceptibility
-    from mlmcpathintegral_tpu.samplers import OverrelaxedHeatBathSampler
+    from mlmcpathintegral.qoi import qoi_2d_susceptibility
+    from mlmcpathintegral.samplers import OverrelaxedHeatBathSampler
 
     lat = Lattice2D(M, M, CoarseningType.BOTH)
     act = QuenchedSchwingerAction(
@@ -61,7 +60,7 @@ def run_one(M, beta, seed, *, rel_target=1e-3, n_chains=1024,
         conditioned_fine_action_factory=make_schwinger_conditioned_fine_action,
         n_level=2, n_burnin=200, n_samples=0,
         epsilon=rel_target * oracle, chunk_size=chunk_size,
-        n_autocorr_window=64, use_pallas=True, pallas_interpret=interpret)
+        n_autocorr_window=64, fused=fused)
     t0 = time.monotonic()
     stats = mc.evaluate(jax.random.PRNGKey(seed), n_chains=n_chains,
                         dtype=jnp.float32)
@@ -92,26 +91,17 @@ def main():
     ap.add_argument("--seeds", default="0,1,2")
     ap.add_argument("--rel-target", type=float, default=1e-3)
     ap.add_argument("--n-chains", type=int, default=1024)
-    ap.add_argument("--interpret", action="store_true")
+    ap.add_argument("--reference", action="store_true",
+                    help="plain-JAX references of the fused kernels")
     args = ap.parse_args()
 
     rows = []
     for cfg in args.configs.split(","):
         M, beta = cfg.split(":")
         for seed in [int(s) for s in args.seeds.split(",")]:
-            for attempt in range(3):
-                try:
-                    r = run_one(int(M), float(beta), seed,
-                                rel_target=args.rel_target,
-                                n_chains=args.n_chains,
-                                interpret=args.interpret)
-                    break
-                except Exception as e:
-                    print(f"M={M} beta={beta} seed={seed} attempt "
-                          f"{attempt} failed: {repr(e)[:150]}", flush=True)
-                    time.sleep(60)
-            else:
-                continue
+            r = run_one(int(M), float(beta), seed,
+                        rel_target=args.rel_target, n_chains=args.n_chains,
+                        fused="reference" if args.reference else "cuda")
             print(r, flush=True)
             rows.append(r)
     if args.csv and rows:

@@ -33,12 +33,12 @@ def main():
                           jax.local_devices(backend="cpu")[0])
     import jax.numpy as jnp
 
-    from mlmcpathintegral_tpu.conditioned import make_conditioned_fine_action
-    from mlmcpathintegral_tpu.lattice import Lattice1D
-    from mlmcpathintegral_tpu.mc import MonteCarloSingleLevel
-    from mlmcpathintegral_tpu.models import RenormalisationType, RotorAction
-    from mlmcpathintegral_tpu.qoi import qoi_susceptibility
-    from mlmcpathintegral_tpu.samplers import (
+    from mlmcpathintegral.conditioned import make_conditioned_fine_action
+    from mlmcpathintegral.lattice import Lattice1D
+    from mlmcpathintegral.mc import MonteCarloSingleLevel
+    from mlmcpathintegral.models import RenormalisationType, RotorAction
+    from mlmcpathintegral.qoi import qoi_susceptibility
+    from mlmcpathintegral.samplers import (
         ClusterSampler, HierarchicalSampler, HMCSampler,
     )
 

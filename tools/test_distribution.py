@@ -42,8 +42,8 @@ def main():
     args = ap.parse_args()
 
     jax.config.update("jax_enable_x64", True)
-    # host-side tool: pin to CPU (the TPU plugin on some machines ignores
-    # JAX_PLATFORMS, and f64 rejection loops are slow on device)
+    # host-side tool: pin to CPU (f64 rejection loops are slow on a
+    # device)
     try:
         jax.config.update("jax_default_device",
                           jax.local_devices(backend="cpu")[0])
@@ -53,14 +53,14 @@ def main():
     n = args.n_samples
 
     if args.distribution == "expsin2":
-        from mlmcpathintegral_tpu.distributions.expsin2 import (
+        from mlmcpathintegral.distributions.expsin2 import (
             ExpSin2Distribution as D)
         draw = jax.jit(lambda k: D.draw(
             k, jnp.full((n,), args.sigma, jnp.float64)))
         dens = lambda x: D.evaluate(x, args.sigma)
         lo, hi = -math.pi, math.pi
     elif args.distribution == "expcos":
-        from mlmcpathintegral_tpu.distributions.expcos import (
+        from mlmcpathintegral.distributions.expcos import (
             ExpCosDistribution as D)
         draw = jax.jit(lambda k: D.draw(
             k, args.beta, jnp.full((n,), args.x_p, jnp.float64),
@@ -68,14 +68,14 @@ def main():
         dens = lambda x: D.evaluate(x, args.beta, args.x_p, args.x_m)
         lo, hi = -math.pi, math.pi
     elif args.distribution == "compactexp":
-        from mlmcpathintegral_tpu.distributions.compactexp import (
+        from mlmcpathintegral.distributions.compactexp import (
             CompactExpDistribution as D)
         draw = jax.jit(lambda k: D.draw(
             k, jnp.full((n,), args.sigma, jnp.float64)))
         dens = lambda x: D.evaluate(x, args.sigma)
         lo, hi = -1.0, 1.0
     elif args.distribution == "besselproduct":
-        from mlmcpathintegral_tpu.distributions.besselproduct import (
+        from mlmcpathintegral.distributions.besselproduct import (
             BesselProductDistribution)
         D = BesselProductDistribution(args.beta)
         draw = jax.jit(lambda k: D.draw(
@@ -84,7 +84,7 @@ def main():
         dens = lambda x: D.evaluate(x, args.x_p, args.x_m)
         lo, hi = -math.pi, math.pi
     else:
-        from mlmcpathintegral_tpu.distributions.approxbesselproduct import (
+        from mlmcpathintegral.distributions.approxbesselproduct import (
             ApproximateBesselProductDistribution)
         D = ApproximateBesselProductDistribution(args.beta)
         draw = jax.jit(lambda k: D.draw(
